@@ -1,12 +1,12 @@
-"""Retrieval-path micro-bench: exact top-k vs approx_max_k vs TPU IVF.
+"""Retrieval-path micro-bench: exact top-k vs approx_max_k vs device IVF.
 
 Measures batched full-catalog retrieval (the serving/eval hot path) at the
 reference catalog scale (47k items) and at 1M items where approximate
 methods earn their keep. Also reports measured recall vs the exact top-k
 for the approximate methods.
 
-Timing follows the tunnel rules (see RESULTS.md): N repetitions chained
-through a dependency, one final materialization.
+Timing: N repetitions chained through a dependency, one final
+materialization.
 """
 
 import json
@@ -17,9 +17,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from recsys_tpu.eval.recall import topk_scores
-from recsys_tpu.ops.ivf import build_ivf, ivf_search
-from recsys_tpu.ops.quant import int8_topk, quantize_items_int8
+from recsys.eval.recall import topk_scores
+from recsys.ops.ivf import build_ivf, ivf_search
+from recsys.ops.quant import int8_topk, quantize_items_int8
 
 B = 1024
 D = 128

@@ -1,11 +1,11 @@
 """Data-parallel scaling-efficiency benchmark (BASELINE.md target: >=85%
-examples/s efficiency from 1 chip to N).
+examples/s efficiency from 1 device to N).
 
 Runs the SimCSE item-tower train step at a fixed per-device batch over
 growing data-parallel mesh sizes and reports examples/s + efficiency vs
-the 1-device run. On this round's single-chip environment it exercises the
-mechanics on the virtual CPU mesh (pass --devices to cap); on a real pod
-slice it measures true ICI scaling — the code path is identical.
+the 1-device run. With --cpu it exercises the mechanics on the virtual CPU
+mesh (pass --devices to cap); on several GPUs it measures real scaling —
+the code path is identical.
 
 Prints one JSON line per mesh size.
 """
@@ -35,15 +35,15 @@ def main():
             pass
     import jax.numpy as jnp
 
-    from recsys_tpu.config import (
-        Config, DataConfig, ItemTowerConfig, MeshConfig, SimCSEConfig, VocabConfig)
-    from recsys_tpu.data.dataset import slice_item_batch, tokenize_items
-    from recsys_tpu.data.synthetic import generate_dataset
-    from recsys_tpu.data.vocab import StdVocab
-    from recsys_tpu.parallel.mesh import build_mesh, data_sharding, replicated
-    from recsys_tpu.train.simcse import (
+    from recsys.config import (
+        Config, DataConfig, ItemTowerConfig, MeshConfig, VocabConfig)
+    from recsys.data.dataset import slice_item_batch, tokenize_items
+    from recsys.data.synthetic import generate_dataset
+    from recsys.data.vocab import StdVocab
+    from recsys.parallel.mesh import build_mesh, data_sharding, replicated
+    from recsys.train.simcse import (
         build_model, init_params, make_optimizer, make_train_step)
-    from recsys_tpu.train.state import TrainState
+    from recsys.train.state import TrainState
 
     n_avail = len(jax.devices())
     max_d = min(args.devices or n_avail, n_avail)
@@ -52,8 +52,7 @@ def main():
     cfg = Config(
         data=DataConfig(num_items=512, num_users=32, days=30, seed=0),
         vocab=VocabConfig(max_field_tokens=8, max_name_tokens=8, text_vocab_size=1024),
-        item_tower=ItemTowerConfig(head_hidden=(128,), fusion_layers=1, text_layers=1),
-        simcse=SimCSEConfig(kernel="xla" if args.cpu else "auto"))
+        item_tower=ItemTowerConfig(head_hidden=(128,), fusion_layers=1, text_layers=1))
     items, _, _ = generate_dataset(cfg.data)
     tensors = tokenize_items(items, StdVocab(), cfg.vocab)
     model = build_model(cfg, StdVocab().size, tensors["std"].shape[1])

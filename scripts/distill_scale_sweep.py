@@ -27,10 +27,10 @@ import tempfile
 
 import numpy as np
 
-from recsys_tpu.config import Config, DistillConfig
-from recsys_tpu.eval.gnn_eval import distill_fidelity
-from recsys_tpu.train.checkpoint import load_array_with_ids
-from recsys_tpu.train.gnn import distilled_vectors, train_distill
+from recsys.config import Config, DistillConfig
+from recsys.eval.gnn_eval import distill_fidelity
+from recsys.train.checkpoint import load_array_with_ids
+from recsys.train.gnn import distilled_vectors, train_distill
 
 
 def main():

@@ -17,7 +17,7 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from recsys_tpu.config import Config, DataConfig  # noqa: E402
+from recsys.config import Config, DataConfig  # noqa: E402
 
 
 def main():
@@ -26,10 +26,10 @@ def main():
                                 else (20, 100, 500)))
     import pandas as pd
 
-    from recsys_tpu.eval.baselines import baseline_report
-    from recsys_tpu.eval.recall import target_rows
-    from recsys_tpu.train.checkpoint import align_rows, load_array_with_ids
-    from recsys_tpu.train.sasrec import prepare_stage2
+    from recsys.eval.baselines import baseline_report
+    from recsys.eval.recall import target_rows
+    from recsys.train.checkpoint import align_rows, load_array_with_ids
+    from recsys.train.sasrec import prepare_stage2
 
     cfg = Config(data=DataConfig(root=root))
     items = pd.read_parquet(f"{root}/items.parquet")

@@ -17,7 +17,7 @@ SETS="--set data.root=$WD --set data.num_items=5000 --set data.num_users=3000 \
 stage() {  # stage <name> <timeout> <cmd...>
   local name=$1 tmo=$2; shift 2
   if [ -s "$OUT/$name.json" ]; then echo "skip $name"; return 0; fi
-  if timeout "$tmo" python -m recsys_tpu.pipeline.cli "$@" $SETS \
+  if timeout "$tmo" python -m recsys.pipeline.cli "$@" $SETS \
       2> >(tail -30 > "$OUT/$name.stderr") | tee "$OUT/$name.json.tmp"; then
     mv "$OUT/$name.json.tmp" "$OUT/$name.json"
   else
@@ -36,7 +36,7 @@ arm() {  # arm <name> <extra --set args...>
   local name=$1; shift
   if [ -s "$OUT/hybrid_$name.json" ]; then echo "skip arm $name"; return 0; fi
   rm -rf "$WD/ckpt_hybrid"
-  if timeout 14400 python -m recsys_tpu.pipeline.cli train-hybrid $SETS \
+  if timeout 14400 python -m recsys.pipeline.cli train-hybrid $SETS \
       --set user_train.epochs=8 --set user_train.ckpt_every=1 "$@" \
       2> >(tail -30 > "$OUT/hybrid_$name.stderr") \
       | tee "$OUT/hybrid_$name.json.tmp"; then

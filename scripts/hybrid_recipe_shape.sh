@@ -25,7 +25,7 @@ SETS="--set data.root=$WD --set data.num_items=105000 --set data.num_users=13700
  --set data.days=365 --set data.repeat_prob=0.10 --set data.name_style_words=2"
 
 if [ -s "$OUT/hybrid_recipe_shape.json" ]; then echo "skip (done)"; exit 0; fi
-if timeout 14400 python -m recsys_tpu.pipeline.cli train-hybrid $SETS \
+if timeout 14400 python -m recsys.pipeline.cli train-hybrid $SETS \
     --set user_train.epochs=4 --set user_train.ckpt_every=1 \
     --set user_train.hybrid_lr=1e-4 --set user_train.hybrid_warmup_steps=100 \
     --set user_train.hybrid_lr_decay=cosine \

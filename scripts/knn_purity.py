@@ -18,7 +18,7 @@ import pandas as pd
 
 sys.path.insert(0, ".")
 
-from recsys_tpu.train.checkpoint import load_array_with_ids  # noqa: E402
+from recsys.train.checkpoint import load_array_with_ids  # noqa: E402
 
 
 def knn_purity(vecs: np.ndarray, labels: np.ndarray, k: int = 10,

@@ -1,5 +1,5 @@
 #!/bin/bash
-# Loss-zoo ablation + world scaling on TPU (ROADMAP quality targets).
+# Loss-zoo ablation + world scaling (ROADMAP quality targets).
 # Stage-1/vectorize once per world, then stage-2 per loss variant.
 set -u
 cd "$(dirname "$0")/.."
@@ -10,20 +10,20 @@ run_world () {          # $1 = tag, $2.. = world SETS
   local tag=$1; shift
   local WD="$OUT/$tag"
   local SETS="--set data.root=$WD $*"
-  python -m recsys_tpu.pipeline.cli gen-data $SETS || return 1
-  python -m recsys_tpu.pipeline.cli etl $SETS | tee "$OUT/$tag.etl.json"
-  timeout 3600 python -m recsys_tpu.pipeline.cli train-item $SETS \
+  python -m recsys.pipeline.cli gen-data $SETS || return 1
+  python -m recsys.pipeline.cli etl $SETS | tee "$OUT/$tag.etl.json"
+  timeout 3600 python -m recsys.pipeline.cli train-item $SETS \
     --set simcse.epochs=3 | tee "$OUT/$tag.item.json"
-  python -m recsys_tpu.pipeline.cli vectorize $SETS
+  python -m recsys.pipeline.cli vectorize $SETS
   for variant in logq hnm mixed_hnm margin; do
     rm -rf "$WD/ckpt_user"
-    timeout 5400 python -m recsys_tpu.pipeline.cli train-user $SETS \
+    timeout 5400 python -m recsys.pipeline.cli train-user $SETS \
       --set user_train.loss_variant=$variant --set user_train.epochs=12 \
       | tee "$OUT/$tag.user.$variant.json"
   done
   # temperature probe on the default variant
   rm -rf "$WD/ckpt_user"
-  timeout 5400 python -m recsys_tpu.pipeline.cli train-user $SETS \
+  timeout 5400 python -m recsys.pipeline.cli train-user $SETS \
     --set user_train.temperature=0.15 --set user_train.epochs=12 \
     | tee "$OUT/$tag.user.logq_t015.json"
 }

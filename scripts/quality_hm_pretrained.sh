@@ -37,7 +37,7 @@ run() {  # run <name> <timeout_s> <cmd...>
   # the [ -s ... ] resume guards can't skip a failed/timed-out stage that
   # tee'd partial output (ADVICE r3)
   local name=$1 tmo=$2; shift 2
-  if timeout "$tmo" python -m recsys_tpu.pipeline.cli "$@" $SETS \
+  if timeout "$tmo" python -m recsys.pipeline.cli "$@" $SETS \
       | tee "$OUT/$name.json.tmp"; then
     mv "$OUT/$name.json.tmp" "$OUT/$name.json"
   else
@@ -46,7 +46,7 @@ run() {  # run <name> <timeout_s> <cmd...>
 }
 
 [ -s "$OUT/pretrain.json" ] || \
-  JAX_PLATFORMS=cpu PYTHONPATH=/root/repo python -m recsys_tpu.pipeline.cli \
+  JAX_PLATFORMS=cpu PYTHONPATH="$(pwd)" python -m recsys.pipeline.cli \
     pretrain-text $SETS | tee "$OUT/pretrain.json" || exit 1
 [ -s "$OUT/item.json" ] || run item 7200 train-item --set simcse.epochs=3
 [ -z "$FAILED" ] || { echo "HM-PT-FAILED:$FAILED"; exit 1; }

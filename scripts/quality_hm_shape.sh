@@ -6,7 +6,7 @@
 # inflated it to ~40%, letting a no-ML baseline tie the stack).
 # Full stack, reporting popularity / repurchase / content-profile / SASRec
 # / GNN-standalone / hybrid / blends side by side.
-# Data/ETL on host CPU; training stages on the TPU chip.
+# Data/ETL on host CPU; training stages on the accelerator.
 set -u -o pipefail
 cd "$(dirname "$0")/.."
 OUT=artifacts/quality_hm
@@ -21,7 +21,7 @@ run() {  # run <name> <timeout_s> <cmd...>
   # the [ -s ... ] resume guards can't skip a failed/timed-out stage that
   # tee'd partial output (ADVICE r3)
   local name=$1 tmo=$2; shift 2
-  if timeout "$tmo" python -m recsys_tpu.pipeline.cli "$@" $SETS \
+  if timeout "$tmo" python -m recsys.pipeline.cli "$@" $SETS \
       | tee "$OUT/$name.json.tmp"; then
     mv "$OUT/$name.json.tmp" "$OUT/$name.json"
   else
@@ -30,10 +30,10 @@ run() {  # run <name> <timeout_s> <cmd...>
 }
 
 [ -f "$WD/transactions.parquet" ] || \
-  JAX_PLATFORMS=cpu python -m recsys_tpu.pipeline.cli gen-data $SETS \
+  JAX_PLATFORMS=cpu python -m recsys.pipeline.cli gen-data $SETS \
     | tee "$OUT/gen.json" || exit 1
 [ -f "$WD/targets_val.json" ] || \
-  JAX_PLATFORMS=cpu python -m recsys_tpu.pipeline.cli etl $SETS \
+  JAX_PLATFORMS=cpu python -m recsys.pipeline.cli etl $SETS \
     | tee "$OUT/etl.json" || exit 1
 [ -s "$OUT/item.json" ] || run item 7200 train-item --set simcse.epochs=3
 [ -z "$FAILED" ] || { echo "HM-SHAPE-FAILED:$FAILED"; exit 1; }

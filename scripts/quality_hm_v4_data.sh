@@ -19,7 +19,7 @@ SETS="--set data.root=$WD --set data.num_items=105000 --set data.num_users=13700
 stage() {  # stage <name> <cmd...>
   local name=$1; shift
   if [ -s "$OUT/$name.json" ]; then echo "skip $name (done)"; return 0; fi
-  JAX_PLATFORMS=cpu python -m recsys_tpu.pipeline.cli "$@" $SETS \
+  JAX_PLATFORMS=cpu python -m recsys.pipeline.cli "$@" $SETS \
     > "$OUT/$name.json.tmp" 2> >(tail -40 > "$OUT/$name.stderr") \
     && mv "$OUT/$name.json.tmp" "$OUT/$name.json" \
     || { rm -f "$OUT/$name.json.tmp"; echo "V4-DATA-FAILED: $name"; exit 1; }

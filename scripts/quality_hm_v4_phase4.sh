@@ -36,7 +36,7 @@ run() {  # run <name> <cmd...>  (timeout = time to STOP)
   local tmo=$(( STOP - $(date +%s) ))
   [ "$tmo" -gt 300 ] || { log "no time for $name"; return 1; }
   log "start $name (timeout ${tmo}s)"
-  if timeout "$tmo" python -m recsys_tpu.pipeline.cli "$@" $SETS \
+  if timeout "$tmo" python -m recsys.pipeline.cli "$@" $SETS \
       2> >(tail -60 > "$OUT/$name.stderr") > "$OUT/$name.rerun.json.tmp"; then
     mv "$OUT/$name.rerun.json.tmp" "$OUT/$name.rerun.json"; log "done $name"
   else

@@ -17,7 +17,7 @@ FAILED=""
 run() {  # run <name> <timeout_s> <extra-sets> <cmd...>
   local name=$1 tmo=$2 sets=$3; shift 3
   if [ -s "$OUT/$name.json" ]; then echo "skip $name"; return 0; fi
-  if timeout "$tmo" python -m recsys_tpu.pipeline.cli "$@" $BASE $sets \
+  if timeout "$tmo" python -m recsys.pipeline.cli "$@" $BASE $sets \
       2> >(tail -40 > "$OUT/$name.stderr") | tee "$OUT/$name.json.tmp"; then
     mv "$OUT/$name.json.tmp" "$OUT/$name.json"
   else
@@ -51,7 +51,7 @@ for f in items.parquet users.parquet transactions.parquet \
 done
 PTSETS="--set data.root=$WDP --set item_tower.text_encoder=pretrained"
 if [ ! -s "$OUT/pretrain.json" ]; then
-  if JAX_PLATFORMS=cpu timeout 3600 python -m recsys_tpu.pipeline.cli \
+  if JAX_PLATFORMS=cpu timeout 3600 python -m recsys.pipeline.cli \
       pretrain-text $BASE $PTSETS | tee "$OUT/pretrain.json.tmp"; then
     mv "$OUT/pretrain.json.tmp" "$OUT/pretrain.json"
   else rm -f "$OUT/pretrain.json.tmp"; echo "V4-STAGE1-FAILED: pretrain"; exit 1; fi

@@ -16,7 +16,7 @@ FAILED=""
 run() {  # run <name> <timeout_s> <cmd...>
   local name=$1 tmo=$2; shift 2
   if [ -s "$OUT/$name.json" ]; then echo "skip $name"; return 0; fi
-  if timeout "$tmo" python -m recsys_tpu.pipeline.cli "$@" $SETS \
+  if timeout "$tmo" python -m recsys.pipeline.cli "$@" $SETS \
       2> >(tail -60 > "$OUT/$name.stderr") | tee "$OUT/$name.json.tmp"; then
     mv "$OUT/$name.json.tmp" "$OUT/$name.json"
   else

@@ -11,12 +11,12 @@ WD=$OUT/world
 mkdir -p "$WD"
 SETS="--set data.root=$WD --set data.num_items=47000 --set data.num_users=1370000 --set data.days=365"
 
-python -m recsys_tpu.pipeline.cli gen-data $SETS || exit 1
-python -m recsys_tpu.pipeline.cli etl $SETS | tee "$OUT/etl.json" || exit 1
-timeout 7200 python -m recsys_tpu.pipeline.cli train-item $SETS \
+python -m recsys.pipeline.cli gen-data $SETS || exit 1
+python -m recsys.pipeline.cli etl $SETS | tee "$OUT/etl.json" || exit 1
+timeout 7200 python -m recsys.pipeline.cli train-item $SETS \
   --set simcse.epochs=3 | tee "$OUT/item.json" || exit 1
-python -m recsys_tpu.pipeline.cli vectorize $SETS || exit 1
-timeout 21600 python -m recsys_tpu.pipeline.cli train-user $SETS \
+python -m recsys.pipeline.cli vectorize $SETS || exit 1
+timeout 21600 python -m recsys.pipeline.cli train-user $SETS \
   --set user_train.ckpt_every=5 | tee "$OUT/user.json"
-timeout 7200 python -m recsys_tpu.pipeline.cli eval $SETS | tee "$OUT/eval.json"
+timeout 7200 python -m recsys.pipeline.cli eval $SETS | tee "$OUT/eval.json"
 echo REF-SCALE-DONE

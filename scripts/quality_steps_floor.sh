@@ -12,14 +12,14 @@ run_world () {          # $1 = tag, $2.. = world SETS
   local tag=$1; shift
   local WD="$OUT/$tag"
   local SETS="--set data.root=$WD $*"
-  python -m recsys_tpu.pipeline.cli gen-data $SETS || return 1
-  python -m recsys_tpu.pipeline.cli etl $SETS | tee "$OUT/$tag.etl.json" || return 1
-  timeout 3600 python -m recsys_tpu.pipeline.cli train-item $SETS \
+  python -m recsys.pipeline.cli gen-data $SETS || return 1
+  python -m recsys.pipeline.cli etl $SETS | tee "$OUT/$tag.etl.json" || return 1
+  timeout 3600 python -m recsys.pipeline.cli train-item $SETS \
     --set simcse.epochs=3 | tee "$OUT/$tag.item.json" || return 1
-  python -m recsys_tpu.pipeline.cli vectorize $SETS || return 1
+  python -m recsys.pipeline.cli vectorize $SETS || return 1
   for variant in logq margin; do
     rm -rf "$WD/ckpt_user"
-    timeout 7200 python -m recsys_tpu.pipeline.cli train-user $SETS \
+    timeout 7200 python -m recsys.pipeline.cli train-user $SETS \
       --set user_train.loss_variant=$variant --set user_train.epochs=12 \
       | tee "$OUT/$tag.user.$variant.json"
   done

@@ -10,19 +10,19 @@ WD=$OUT/world
 mkdir -p "$WD"
 SETS="--set data.root=$WD --set data.num_items=47000 --set data.num_users=200000 --set data.days=365"
 
-python -m recsys_tpu.pipeline.cli gen-data $SETS || exit 1
-python -m recsys_tpu.pipeline.cli etl $SETS | tee "$OUT/etl.json" || exit 1
-timeout 7200 python -m recsys_tpu.pipeline.cli train-item $SETS \
+python -m recsys.pipeline.cli gen-data $SETS || exit 1
+python -m recsys.pipeline.cli etl $SETS | tee "$OUT/etl.json" || exit 1
+timeout 7200 python -m recsys.pipeline.cli train-item $SETS \
   --set simcse.epochs=3 | tee "$OUT/item.json" || exit 1
-python -m recsys_tpu.pipeline.cli vectorize $SETS || exit 1
-timeout 10800 python -m recsys_tpu.pipeline.cli train-user $SETS \
+python -m recsys.pipeline.cli vectorize $SETS || exit 1
+timeout 10800 python -m recsys.pipeline.cli train-user $SETS \
   --set user_train.ckpt_every=5 | tee "$OUT/user.json"
-timeout 7200 python -m recsys_tpu.pipeline.cli train-gnn $SETS \
+timeout 7200 python -m recsys.pipeline.cli train-gnn $SETS \
   --set gnn.epochs=5 | tee "$OUT/gnn.json"
-timeout 3600 python -m recsys_tpu.pipeline.cli distill $SETS | tee "$OUT/distill.json"
-timeout 10800 python -m recsys_tpu.pipeline.cli train-hybrid $SETS \
+timeout 3600 python -m recsys.pipeline.cli distill $SETS | tee "$OUT/distill.json"
+timeout 10800 python -m recsys.pipeline.cli train-hybrid $SETS \
   | tee "$OUT/hybrid.json"
-timeout 3600 python -m recsys_tpu.pipeline.cli train-reranker $SETS \
+timeout 3600 python -m recsys.pipeline.cli train-reranker $SETS \
   | tee "$OUT/reranker.json"
-timeout 3600 python -m recsys_tpu.pipeline.cli eval $SETS | tee "$OUT/eval.json"
+timeout 3600 python -m recsys.pipeline.cli eval $SETS | tee "$OUT/eval.json"
 echo XL-DONE

@@ -1,7 +1,7 @@
 #!/bin/bash
 # 10x-reference-catalog run: 470k items / 500k users / 365 days — scale
 # the reference (47k-item H&M catalog, single GPU) cannot touch. Full
-# stack on one TPU chip; epochs trimmed to keep wall-clock ~2-3h.
+# stack on one accelerator; epochs trimmed to keep wall-clock ~2-3h.
 # Later stages tolerate an earlier optional stage failing (partial
 # results are still useful) but the final sentinel reports any failure.
 set -u -o pipefail
@@ -14,12 +14,12 @@ FAILED=""
 
 run() {  # run <name> <timeout_s> <args...>
   local name=$1 tmo=$2; shift 2
-  timeout "$tmo" python -m recsys_tpu.pipeline.cli "$@" $SETS \
+  timeout "$tmo" python -m recsys.pipeline.cli "$@" $SETS \
     | tee "$OUT/$name.json" || FAILED="$FAILED $name"
 }
 
-JAX_PLATFORMS=cpu python -m recsys_tpu.pipeline.cli gen-data $SETS | tee "$OUT/gen.json" || exit 1
-JAX_PLATFORMS=cpu python -m recsys_tpu.pipeline.cli etl $SETS | tee "$OUT/etl.json" || exit 1
+JAX_PLATFORMS=cpu python -m recsys.pipeline.cli gen-data $SETS | tee "$OUT/gen.json" || exit 1
+JAX_PLATFORMS=cpu python -m recsys.pipeline.cli etl $SETS | tee "$OUT/etl.json" || exit 1
 run item 7200 train-item --set simcse.epochs=2
 [ -z "$FAILED" ] || exit 1           # everything downstream needs vectors
 run vectorize 3600 vectorize

@@ -3,7 +3,7 @@
 # idempotent-ish (re-runs regenerate worlds), and tees its per-stage JSON
 # into artifacts/<campaign>/ — the committed summary JSONs the tables cite.
 #
-#   bench.py                      headline throughput anchors (BENCH_r*.json)
+#   bench.py                      headline throughput anchors (JSON lines)
 #   quality_ablation.sh           loss-zoo ablation (small world)
 #   quality_mid_diag.sh           v3 mid world attribution table
 #   quality_text_pretrain_ab.sh   hash vs corpus-pretrained text encoder
@@ -12,8 +12,8 @@
 #   knn_purity.py <world>         stage-1 purity metric for any world
 #   bench_scaling.py              DP scaling efficiency (needs multi-chip)
 #
-# Training stages target the TPU chip when one is visible (the default
-# env); JAX_PLATFORMS=cpu everything still runs, just slower.
+# Training stages run on the GPU when JAX sees one; with
+# JAX_PLATFORMS=cpu everything still runs, just slower.
 set -e
 cd "$(dirname "$0")/.."
 python bench.py

@@ -30,7 +30,7 @@ import urllib.request
 
 import numpy as np
 
-from recsys_tpu.config import Config, DataConfig, ItemTowerConfig, ServeConfig
+from recsys.config import Config, DataConfig, ItemTowerConfig, ServeConfig
 
 
 def _pctl(xs, p):
@@ -61,8 +61,8 @@ def main():
 
     import pandas as pd
 
-    from recsys_tpu.serve.app import build_app_context
-    from recsys_tpu.serve.recommend import load_recommend_assets
+    from recsys.serve.app import build_app_context
+    from recsys.serve.recommend import load_recommend_assets
 
     cfg = Config(data=DataConfig(root=world),
                  item_tower=ItemTowerConfig(),
@@ -106,7 +106,7 @@ def main():
     # eval_uvecs covers target users only (~16% at shape) — oversample,
     # then cap at n_users below
     seqs = seqs.sample(n=min(n_users * 10, len(seqs)), random_state=0)
-    from recsys_tpu.train.checkpoint import load_array_with_ids
+    from recsys.train.checkpoint import load_array_with_ids
 
     user_vectors = "stage2_eval"
     try:
@@ -165,7 +165,7 @@ def main():
         print(f"direct {name}: {out['direct'][name]}", file=sys.stderr)
 
     # HTTP end-to-end (same context, real sockets)
-    from recsys_tpu.serve.server import make_server
+    from recsys.serve.server import make_server
 
     srv = make_server(ctx, "127.0.0.1", 8199)
     t = threading.Thread(target=srv.serve_forever, daemon=True)

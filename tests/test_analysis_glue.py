@@ -5,13 +5,13 @@ import pytest
 
 import jax
 
-from recsys_tpu.config import (
+from recsys.config import (
     Config, DataConfig, ItemTowerConfig, MeshConfig, ServeConfig, SimCSEConfig,
     UserTowerConfig, UserTrainConfig, VocabConfig)
-from recsys_tpu.data.analysis import (
+from recsys.data.analysis import (
     behavior_features, cluster_personas, stratified_kfold)
-from recsys_tpu.data.synthetic import generate_dataset
-from recsys_tpu.parallel.mesh import build_mesh
+from recsys.data.synthetic import generate_dataset
+from recsys.parallel.mesh import build_mesh
 
 CFG = Config(data=DataConfig(num_items=150, num_users=60, days=50, seed=21))
 
@@ -47,8 +47,8 @@ def test_persona_clustering(world):
 
 
 def test_store_backed_item_trainer(tmp_path):
-    from recsys_tpu.serve.store import ServeStore
-    from recsys_tpu.serve.train_glue import make_item_trainer
+    from recsys.serve.store import ServeStore
+    from recsys.serve.train_glue import make_item_trainer
 
     cfg = Config(
         data=DataConfig(seed=0),
@@ -71,8 +71,8 @@ def test_store_backed_item_trainer(tmp_path):
 
 
 def test_store_backed_user_trainer(tmp_path):
-    from recsys_tpu.serve.store import ActionType, ServeStore
-    from recsys_tpu.serve.train_glue import make_user_trainer
+    from recsys.serve.store import ActionType, ServeStore
+    from recsys.serve.train_glue import make_user_trainer
 
     cfg = Config(
         data=DataConfig(seed=0),

@@ -7,16 +7,16 @@ import dataclasses
 import numpy as np
 import pytest
 
-from recsys_tpu.config import DataConfig, UserTowerConfig, VocabConfig
-from recsys_tpu.data import etl, tokenizer as tok
-from recsys_tpu.data.dataset import (
+from recsys.config import DataConfig, UserTowerConfig, VocabConfig
+from recsys.data import etl, tokenizer as tok
+from recsys.data.dataset import (
     IdMap,
     build_sasrec_tensors,
     build_side_info,
     tokenize_items,
 )
-from recsys_tpu.data.synthetic import enrich_item, generate_dataset
-from recsys_tpu.data.vocab import PAD_ID, RE_FEATURE_KEYS, UNK_ID, StdVocab
+from recsys.data.synthetic import enrich_item, generate_dataset
+from recsys.data.vocab import PAD_ID, RE_FEATURE_KEYS, UNK_ID, StdVocab
 
 CFG = DataConfig(num_items=200, num_users=80, days=60, seed=7)
 
@@ -178,7 +178,7 @@ def test_side_info_alignment(world):
 
 def test_native_packer_matches_python(world, monkeypatch):
     """Native C++ tokenization must be bit-identical to the Python path."""
-    from recsys_tpu.data import native_pack
+    from recsys.data import native_pack
 
     items, _, _ = world
     vcfg = VocabConfig(max_field_tokens=16, max_name_tokens=12)
@@ -202,7 +202,7 @@ def test_aggregate_histories(world, tmp_path):
 
 
 def test_sequence_distribution_stats(world):
-    from recsys_tpu.data.analysis import sequence_distribution_stats
+    from recsys.data.analysis import sequence_distribution_stats
 
     _, _, tx = world
     train, _, _ = etl.time_split(tx)
@@ -218,7 +218,7 @@ def test_sequence_distribution_stats(world):
 
 
 def test_latent_clusters_and_oracle(world):
-    from recsys_tpu.data.synthetic import cluster_oracle_recall
+    from recsys.data.synthetic import cluster_oracle_recall
     items, users, tx = world
     cl = items["latent_cluster"].to_numpy()
     assert cl.min() >= 0 and len(np.unique(cl)) >= 8
@@ -235,8 +235,8 @@ def test_latent_clusters_and_oracle(world):
     o = cluster_oracle_recall(items, tx, split, k=20)
     assert o["oracle_recall"] > o["popularity_recall"] + 0.02
     # and the knob turns it off: a pool_prob=0 world has (near) no gap
-    from recsys_tpu.config import DataConfig
-    from recsys_tpu.data.synthetic import generate_dataset
+    from recsys.config import DataConfig
+    from recsys.data.synthetic import generate_dataset
     flat_cfg = DataConfig(num_items=200, num_users=80, days=60, seed=7,
                           user_pool_prob=0.0)
     fi, fu, ftx = generate_dataset(flat_cfg)
@@ -248,7 +248,7 @@ def test_latent_clusters_and_oracle(world):
 def test_micro_season_rules():
     """The prompter's temperature-aware micro-season block
     (`gemini_flash_compatible_with_Gemma-prompter.txt:18-24`)."""
-    from recsys_tpu.data.synthetic import micro_season
+    from recsys.data.synthetic import micro_season
 
     assert micro_season("Summer", "linen") == "high_summer"
     assert micro_season("Summer", "cotton") == "early_summer"
@@ -264,7 +264,7 @@ def test_micro_season_rules():
 def test_seasonal_drift_and_session_season():
     """Season-matched items draw season_boost x likelier; transactions carry
     the session season; boost=1.0 restores the flat distribution."""
-    from recsys_tpu.data.synthetic import SEASONS, generate_dataset, season_of_day
+    from recsys.data.synthetic import SEASONS, generate_dataset, season_of_day
 
     cfg = DataConfig(num_items=300, num_users=120, days=364, seed=5)
     items, _, tx = generate_dataset(cfg)
@@ -289,8 +289,8 @@ def test_seasonal_drift_and_session_season():
 
 
 def test_seasonal_logq():
-    from recsys_tpu.data.etl import seasonal_logq
-    from recsys_tpu.data.synthetic import generate_dataset
+    from recsys.data.etl import seasonal_logq
+    from recsys.data.synthetic import generate_dataset
 
     cfg = DataConfig(num_items=200, num_users=80, days=364, seed=7)
     items, _, tx = generate_dataset(cfg)

@@ -4,7 +4,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from recsys_tpu.eval.recall import evaluate_retrieval, recall_at_ks
+from recsys.eval.recall import evaluate_retrieval, recall_at_ks
 
 
 def test_recall_at_ks_denominator_semantics():
@@ -32,7 +32,7 @@ def test_evaluate_retrieval_pipeline():
 
 
 def test_tsne_scatter(tmp_path):
-    from recsys_tpu.eval.viz import tsne_scatter
+    from recsys.eval.viz import tsne_scatter
 
     rng = np.random.default_rng(1)
     emb = np.concatenate([rng.normal(0, 1, (40, 16)),
@@ -45,7 +45,7 @@ def test_tsne_scatter(tmp_path):
 
 
 def test_baseline_popularity_and_repurchase():
-    from recsys_tpu.eval.baselines import baseline_report, repurchase_topk
+    from recsys.eval.baselines import baseline_report, repurchase_topk
 
     # logq: item 3 most popular, then 1, then 2; PAD row 0 at -20
     logq = np.array([-20.0, -1.0, -2.0, -0.5])
@@ -71,7 +71,7 @@ def test_baseline_popularity_and_repurchase():
 
 
 def test_content_profile_baseline():
-    from recsys_tpu.eval.baselines import baseline_report, content_profile_topk
+    from recsys.eval.baselines import baseline_report, content_profile_topk
 
     # two orthogonal content clusters; each user's history sits in one
     # cluster and their target is the unseen item of the SAME cluster
@@ -106,7 +106,7 @@ def test_content_profile_baseline():
 
 
 def test_blend_sweep_recovers_prior_signal():
-    from recsys_tpu.eval.baselines import blend_sweep
+    from recsys.eval.baselines import blend_sweep
 
     rng = np.random.default_rng(0)
     B, N, D = 6, 40, 8
@@ -132,7 +132,7 @@ def test_blend_sweep_recovers_prior_signal():
 
 
 def test_topk_scores_prior():
-    from recsys_tpu.eval.recall import topk_scores
+    from recsys.eval.recall import topk_scores
 
     items = np.zeros((5, 4), np.float32)
     items[1:] = np.eye(4)
@@ -147,7 +147,7 @@ def test_topk_scores_prior():
 def test_blend_sweep_device_backend_matches_host():
     """The jitted device sweep must produce the same recall table as the
     chunked host-numpy sweep (same math; only tie order may differ)."""
-    from recsys_tpu.eval.baselines import blend_sweep
+    from recsys.eval.baselines import blend_sweep
 
     rng = np.random.default_rng(3)
     B, N, D = 37, 60, 8   # odd B exercises the fixed-shape batch padding
@@ -171,7 +171,7 @@ def test_blend_sweep_device_backend_matches_host():
 
 
 def test_per_user_recall_and_bootstrap():
-    from recsys_tpu.eval.recall import (bootstrap_mean_ci, paired_delta_ci,
+    from recsys.eval.recall import (bootstrap_mean_ci, paired_delta_ci,
                                         recall_per_user)
 
     topk = np.array([[1, 2], [3, 4], [5, 6]], np.int64)
@@ -206,8 +206,8 @@ def test_per_user_blocks_align_across_report_and_blend():
     """baseline_report and blend_sweep (host + device) must emit per-user
     arrays over the same users in the same order, so cmd_eval's paired
     significance tests are valid."""
-    from recsys_tpu.eval.baselines import baseline_report, blend_sweep
-    from recsys_tpu.eval.recall import recall_at_ks
+    from recsys.eval.baselines import baseline_report, blend_sweep
+    from recsys.eval.recall import recall_at_ks
 
     rng = np.random.default_rng(7)
     B, N, D, L = 23, 30, 8, 5
@@ -241,7 +241,7 @@ def test_per_user_blocks_align_across_report_and_blend():
 
 
 def test_content_profile_device_backend_matches_host():
-    from recsys_tpu.eval.baselines import content_profile_topk
+    from recsys.eval.baselines import content_profile_topk
 
     rng = np.random.default_rng(11)
     N, D = 80, 16
@@ -272,7 +272,7 @@ def test_topk_scores_jitted_under_model_mesh(mesh8):
     items = rng.normal(size=(64, 8)).astype(np.float32)
     items[0] = 0
     u = rng.normal(size=(16, 8)).astype(np.float32)
-    from recsys_tpu.eval.recall import topk_scores
+    from recsys.eval.recall import topk_scores
 
     _, eager = topk_scores(jnp.asarray(u), jnp.asarray(items), 5, mesh=mesh8)
     f = jax.jit(lambda uu, it: topk_scores(uu, it, 5, mesh=mesh8)[1])
@@ -283,7 +283,7 @@ def test_topk_scores_jitted_under_model_mesh(mesh8):
 def test_repurchase_topk_matches_reference_loop():
     """The vectorized popularity fill must be bit-identical to the naive
     per-user scan (count desc, recency desc head; fill skips ranked)."""
-    from recsys_tpu.eval.baselines import popularity_ranking, repurchase_topk
+    from recsys.eval.baselines import popularity_ranking, repurchase_topk
 
     rng = np.random.default_rng(17)
     N, max_k = 50, 12

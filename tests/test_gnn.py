@@ -6,9 +6,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from recsys_tpu.config import Config, DataConfig, DistillConfig, GNNConfig
-from recsys_tpu.ops.graph import build_graph, propagate, svd_propagate
-from recsys_tpu.train import gnn as G
+from recsys.config import Config, DataConfig, DistillConfig, GNNConfig
+from recsys.ops.graph import build_graph, propagate, svd_propagate
+from recsys.train import gnn as G
 
 CFG = Config(
     data=DataConfig(seed=5),
@@ -74,7 +74,7 @@ def test_bpr_sampler_rejects_positives(tiny_graph):
 
 def test_train_lightgcl_learns(tiny_graph, tmp_path):
     graph, u, i = tiny_graph
-    state, model = G.train_lightgcl(CFG, graph, u, i, str(tmp_path))
+    state = G.train_lightgcl(CFG, graph, u, i, str(tmp_path))
     import json
     recs = [json.loads(l) for l in open(tmp_path / "metrics.jsonl")]
     losses = [r["loss"] for r in recs if r["kind"] == "epoch"]
@@ -95,16 +95,16 @@ def test_train_lightgcl_learns(tiny_graph, tmp_path):
                                     [f"us{k}" for k in range(40)],
                                     [f"it{k}" for k in range(30)],
                                     str(tmp_path / "gnn"))
-    from recsys_tpu.train.checkpoint import load_array_with_ids
+    from recsys.train.checkpoint import load_array_with_ids
     arr, ids, meta = load_array_with_ids(str(tmp_path / "gnn_items"))
     assert arr.shape == (30, 16) and meta["space"] == "gnn_dot"
 
     # resume path: one more epoch on top of the stored state
     cfg2 = Config(**{**CFG.__dict__, "gnn": GNNConfig(
         emb_dim=16, num_layers=2, svd_rank=4, batch_size=256, epochs=5, lr=5e-2)})
-    state2, _ = G.train_lightgcl(cfg2, graph, u, i, str(tmp_path), resume=True)
+    state2 = G.train_lightgcl(cfg2, graph, u, i, str(tmp_path), resume=True)
     # fine-tune path: fresh cosine optimizer over restored params
-    state3, _ = G.train_lightgcl(cfg2, graph, u, i, str(tmp_path), fine_tune=True)
+    state3 = G.train_lightgcl(cfg2, graph, u, i, str(tmp_path), fine_tune=True)
 
 
 def test_distillation_folds_magnitude(tiny_graph, tmp_path):
@@ -131,7 +131,7 @@ def test_propagate_chunked_matches_naive():
     exceeds HBM."""
     import jax.numpy as jnp
 
-    from recsys_tpu.ops.graph import propagate, propagate_chunked
+    from recsys.ops.graph import propagate, propagate_chunked
 
     rng = np.random.default_rng(0)
     n, e = 200, 5000
@@ -153,7 +153,7 @@ def test_distill_hard_mining_path(tmp_path):
     magnitude into angles."""
     import dataclasses
 
-    from recsys_tpu.config import DistillConfig
+    from recsys.config import DistillConfig
 
     rng = np.random.default_rng(4)
     tu = rng.normal(size=(50, 16)).astype(np.float32)

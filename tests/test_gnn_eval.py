@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from recsys_tpu.eval.gnn_eval import (distill_fidelity, standalone_rows,
+from recsys.eval.gnn_eval import (distill_fidelity, standalone_rows,
                                       topk_rows)
 
 

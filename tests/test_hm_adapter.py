@@ -10,8 +10,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from recsys_tpu.data import etl
-from recsys_tpu.data.hm_adapter import (
+from recsys.data import etl
+from recsys.data.hm_adapter import (
     enrich_hm_item, items_from_hm, load_hm_dataset, transactions_from_hm,
     users_from_hm, vocab_from_items,
 )
@@ -97,8 +97,8 @@ def test_enrichment_rules():
 
 
 def test_full_load_through_etl_and_tokenizer(hm_dir):
-    from recsys_tpu.config import Config
-    from recsys_tpu.data.dataset import tokenize_items
+    from recsys.config import Config
+    from recsys.data.dataset import tokenize_items
 
     items, users, tx = load_hm_dataset(hm_dir)
     train_tx, valid_tx, split_day = etl.time_split(tx, valid_days=7)
@@ -116,7 +116,7 @@ def test_full_load_through_etl_and_tokenizer(hm_dir):
 
 
 def test_vocab_json_roundtrip(hm_dir, tmp_path):
-    from recsys_tpu.data.vocab import StdVocab
+    from recsys.data.vocab import StdVocab
 
     items, _, _ = load_hm_dataset(hm_dir)
     vocab = vocab_from_items(items)

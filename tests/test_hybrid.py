@@ -5,14 +5,14 @@ import pytest
 
 import jax
 
-from recsys_tpu.config import (
+from recsys.config import (
     Config, DataConfig, MeshConfig, UserTowerConfig, UserTrainConfig, VocabConfig)
-from recsys_tpu.data.synthetic import generate_dataset
-from recsys_tpu.eval.ensemble import (
+from recsys.data.synthetic import generate_dataset
+from recsys.eval.ensemble import (
     alpha_sweep, count_mix_ensemble, rrf_ensemble, weighted_score_ensemble)
-from recsys_tpu.parallel.mesh import build_mesh
-from recsys_tpu.train import hybrid as H
-from recsys_tpu.train import sasrec
+from recsys.parallel.mesh import build_mesh
+from recsys.train import hybrid as H
+from recsys.train import sasrec
 
 CFG = Config(
     data=DataConfig(num_items=100, num_users=50, days=50, seed=13),
@@ -120,7 +120,7 @@ def test_device_fusers_match_host_backend():
     methods (distinct scores, so f32-vs-f64 tie handling can't differ),
     including chunk padding (B not a multiple of chunk) and the ragged
     alpha grid."""
-    from recsys_tpu.eval.ensemble import _alpha_sweep_device
+    from recsys.eval.ensemble import _alpha_sweep_device
 
     rng = np.random.default_rng(3)
     B, M, k = 33, 40, 12

@@ -4,9 +4,9 @@ import json
 
 import numpy as np
 
-from recsys_tpu.data.ingest import ingest_transactions
-from recsys_tpu.data.ranker_features import cross_features
-from recsys_tpu.train.metrics import SmartLogger, maybe_wandb_writer
+from recsys.data.ingest import ingest_transactions
+from recsys.data.ranker_features import cross_features
+from recsys.train.metrics import SmartLogger, maybe_wandb_writer
 
 
 def test_streaming_json_ingest(tmp_path):
@@ -60,7 +60,7 @@ def test_loggers(capsys):
 
 
 def test_meta_feature_importance_slices():
-    from recsys_tpu.train.metrics import meta_feature_importance
+    from recsys.train.metrics import meta_feature_importance
 
     # kernel (in=6, out=4): rows 0-1 dominate -> their group gets the share
     k = np.zeros((6, 4), np.float32)
@@ -73,8 +73,8 @@ def test_meta_feature_importance_slices():
 
 
 def test_static_branch_importance_from_params():
-    from recsys_tpu.config import UserTowerConfig
-    from recsys_tpu.train.metrics import static_branch_importance
+    from recsys.config import UserTowerConfig
+    from recsys.train.metrics import static_branch_importance
 
     c = UserTowerConfig(static_bucket_fields=2, static_cat_fields=1,
                         bucket_emb_dim=4, cat_emb_dim=2, cont_proj_dim=3)

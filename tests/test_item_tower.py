@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from recsys_tpu.config import Config, DataConfig, ItemTowerConfig, SimCSEConfig, VocabConfig
-from recsys_tpu.data.dataset import slice_item_batch, tokenize_items
-from recsys_tpu.data.synthetic import generate_dataset
-from recsys_tpu.data.vocab import StdVocab
-from recsys_tpu.ops import contrastive as C
-from recsys_tpu.ops.augment import corrupt_view, two_views
+from recsys.config import Config, DataConfig, ItemTowerConfig, SimCSEConfig, VocabConfig
+from recsys.data.dataset import slice_item_batch, tokenize_items
+from recsys.data.synthetic import generate_dataset
+from recsys.data.vocab import StdVocab
+from recsys.ops import contrastive as C
+from recsys.ops.augment import corrupt_view, two_views
 
 SMALL_CFG = Config(
     data=DataConfig(num_items=64, num_users=16, days=30, seed=3),
@@ -32,8 +32,8 @@ def item_tensors():
 
 @pytest.fixture(scope="module")
 def mesh():
-    from recsys_tpu.config import MeshConfig
-    from recsys_tpu.parallel.mesh import build_mesh
+    from recsys.config import MeshConfig
+    from recsys.parallel.mesh import build_mesh
     return build_mesh(MeshConfig(num_data=4, num_model=1), jax.devices()[:4])
 
 
@@ -131,7 +131,7 @@ def test_positive_recovery_restores_diagonal():
 def test_simcse_training_learns_and_retrieves(item_tensors, mesh, tmp_path):
     """The minimum E2E slice: train -> loss drops; materialize -> self-
     retrieval puts each item's own vector at rank 1."""
-    from recsys_tpu.train.simcse import (
+    from recsys.train.simcse import (
         materialize_item_vectors, topk_items, train_simcse)
 
     state = train_simcse(SMALL_CFG, item_tensors, mesh, str(tmp_path))
@@ -148,7 +148,7 @@ def test_simcse_training_learns_and_retrieves(item_tensors, mesh, tmp_path):
     _, idx = topk_items(mat, mat[1:9], k=3)
     assert (idx[:, 0] == np.arange(1, 9)).all()
     # sidecar round trip
-    from recsys_tpu.train.checkpoint import load_array_with_ids
+    from recsys.train.checkpoint import load_array_with_ids
     arr, ids, meta = load_array_with_ids(str(tmp_path / "item_matrix"))
     assert ids[0] == "<pad>" and len(ids) == 65
 
@@ -157,7 +157,7 @@ def test_random_cut_augmentation():
     """Random-cut keeps the left-padding invariant: the chosen position
     becomes the last slot; everything after it is dropped."""
     import jax
-    from recsys_tpu.ops.augment import random_cut
+    from recsys.ops.augment import random_cut
 
     B, L = 6, 8
     inp = np.tile(np.arange(1, L + 1, dtype=np.int32), (B, 1))
@@ -187,7 +187,7 @@ def test_simcse_steps_floor_multiplies_passes(item_tensors, mesh, tmp_path):
     has at least that many optimizer steps (same contract as stage-2)."""
     import dataclasses
     import json
-    from recsys_tpu.train.simcse import train_simcse
+    from recsys.train.simcse import train_simcse
 
     cfg = dataclasses.replace(SMALL_CFG, simcse=dataclasses.replace(
         SMALL_CFG.simcse, epochs=1, metrics_every=1, steps_per_epoch_min=9))
@@ -203,7 +203,7 @@ def test_simcse_steps_floor_multiplies_passes(item_tensors, mesh, tmp_path):
 def test_pretrain_embeddings_semantics(item_tensors):
     """PPMI-SVD embeddings: PAD row zero, unit rows, and co-occurring tokens
     (same item) closer on average than random token pairs."""
-    from recsys_tpu.data.text_pretrain import pretrain_embeddings
+    from recsys.data.text_pretrain import pretrain_embeddings
 
     V = SMALL_CFG.vocab.text_vocab_size
     emb = pretrain_embeddings(item_tensors, V, dim=32, seed=0)
@@ -231,8 +231,8 @@ def test_pretrained_encoder_frozen_table(item_tensors, mesh, tmp_path):
     """Full stage-1 training with text_encoder='pretrained': loss finite,
     artifact loaded into the param, and the table BIT-IDENTICAL after
     training (stop_gradient + set_to_zero group)."""
-    from recsys_tpu.data.text_pretrain import pretrain_embeddings
-    from recsys_tpu.train.simcse import train_simcse
+    from recsys.data.text_pretrain import pretrain_embeddings
+    from recsys.train.simcse import train_simcse
 
     cfg = dataclasses.replace(
         SMALL_CFG,

@@ -4,7 +4,7 @@ cluster recall, and the approx top-k method switch."""
 import numpy as np
 import jax.numpy as jnp
 
-from recsys_tpu.ops.ivf import build_ivf, ivf_search, kmeans
+from recsys.ops.ivf import build_ivf, ivf_search, kmeans
 
 
 def _clustered_catalog(rng, n_clusters=8, per=40, dim=16):
@@ -91,7 +91,7 @@ def test_kmeans_reseeds_empty_clusters():
 
 
 def test_topk_scores_approx_method():
-    from recsys_tpu.eval.recall import topk_scores
+    from recsys.eval.recall import topk_scores
 
     rng = np.random.default_rng(5)
     items = rng.normal(size=(101, 8)).astype(np.float32)
@@ -109,14 +109,14 @@ def test_topk_scores_approx_method():
     assert overlap >= 0.8
 
 
-def test_ivf_tpu_index_serving_interface(tmp_path):
-    from recsys_tpu.serve.ann import IvfTpuIndex, VectorIndex
+def test_ivf_device_index_serving_interface(tmp_path):
+    from recsys.serve.ann import IvfIndex, VectorIndex
 
     rng = np.random.default_rng(6)
     mat, _ = _clustered_catalog(rng, n_clusters=4, per=30, dim=12)
     vecs = mat[1:]
     ids = (np.arange(len(vecs)) + 1000).astype(np.int64)  # external ids
-    ivf = IvfTpuIndex(12, nlist=4, nprobe=4)
+    ivf = IvfIndex(12, nlist=4, nprobe=4)
     exact = VectorIndex(12, cosine=True)
     ivf.add(ids, vecs)
     exact.add(ids, vecs)
@@ -134,11 +134,11 @@ def test_ivf_tpu_index_serving_interface(tmp_path):
 
     # persistence round-trip
     ivf.save(str(tmp_path / "ivf"))
-    back = IvfTpuIndex.load(str(tmp_path / "ivf"))
+    back = IvfIndex.load(str(tmp_path / "ivf"))
     gi3, _ = back.topk(q, 10)
     assert set(gi3[0].tolist()) == set(gi2[0].tolist())
 
     # empty index contract
-    empty = IvfTpuIndex(12)
+    empty = IvfIndex(12)
     i0, s0 = empty.topk(q, 3)
     assert (i0 == -1).all() and (s0 == 0).all()

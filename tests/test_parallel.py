@@ -6,12 +6,12 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from recsys_tpu.parallel.collectives import (
+from recsys.parallel.collectives import (
     gather_global_negatives,
     rowsharded_lookup,
     sharded_topk,
 )
-from recsys_tpu.parallel.mesh import pad_to_multiple, smap
+from recsys.parallel.mesh import pad_to_multiple, smap
 
 
 def test_mesh_shape(mesh8):
@@ -86,7 +86,7 @@ def test_rowsharded_lookup_grad(mesh8):
 
 @pytest.mark.parametrize("backend", ["msgpack", "orbax"])
 def test_checkpoint_roundtrip(tmp_path, backend):
-    from recsys_tpu.train.checkpoint import CheckpointStore
+    from recsys.train.checkpoint import CheckpointStore
 
     store = CheckpointStore(str(tmp_path), keep=2, backend=backend)
     state = {"w": jnp.ones((3, 3)), "step": 0}
@@ -104,7 +104,7 @@ def test_checkpoint_roundtrip(tmp_path, backend):
 
 
 def test_id_sidecar_alignment(tmp_path):
-    from recsys_tpu.train.checkpoint import (
+    from recsys.train.checkpoint import (
         align_rows,
         load_array_with_ids,
         save_array_with_ids,
@@ -121,7 +121,7 @@ def test_id_sidecar_alignment(tmp_path):
 
 
 def test_metrics_alignment_uniformity():
-    from recsys_tpu.train.metrics import alignment, uniformity
+    from recsys.train.metrics import alignment, uniformity
 
     e = jnp.eye(4, 8)
     assert float(alignment(e, e)) == pytest.approx(0.0)
@@ -132,7 +132,7 @@ def test_metrics_alignment_uniformity():
 
 
 def test_rowsharded_lookup_a2a(mesh8):
-    from recsys_tpu.parallel.collectives import rowsharded_lookup_a2a
+    from recsys.parallel.collectives import rowsharded_lookup_a2a
 
     V, D, B = 32, 8, 8  # model axis = 2 shards of 16 rows; ids sharded too
     table = jnp.arange(V * D, dtype=jnp.float32).reshape(V, D)
@@ -146,132 +146,10 @@ def test_rowsharded_lookup_a2a(mesh8):
     np.testing.assert_allclose(np.asarray(out), np.asarray(table[ids]))
 
 
-# -- Pallas ring collectives (TPU-interpreter-simulated RDMA) ---------------
-
-def test_ring_all_gather_matches_xla(mesh_dp):
-    from recsys_tpu.parallel.pallas_ring import ring_all_gather
-
-    B, D = 16, 8
-    x = jnp.arange(B * D, dtype=jnp.float32).reshape(B, D)
-    f = smap(lambda e: ring_all_gather(e, "data"), mesh_dp,
-             P("data", None), out_specs=P(None, None))
-    np.testing.assert_allclose(np.asarray(f(x)), np.asarray(x))
-
-
-def test_ring_all_gather_race_free(mesh_dp):
-    """Run under the Pallas TPU interpreter's vector-clock race detector:
-    the double-buffer + ready-handshake protocol must be provably race-free,
-    not just correct on one interleaving."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    import recsys_tpu.parallel.pallas_ring as pr
-
-    orig = pr._interpret
-    pr._interpret = lambda: pltpu.InterpretParams(
-        dma_execution_mode="on_wait", detect_races=True)
-    try:
-        B, D = 8, 4
-        x = jnp.arange(B * D, dtype=jnp.float32).reshape(B, D)
-        f = smap(lambda e: pr.ring_all_gather(e, "data"), mesh_dp,
-                 P("data", None), out_specs=P(None, None))
-        np.testing.assert_allclose(np.asarray(f(x)), np.asarray(x))
-    finally:
-        pr._interpret = orig
-
-
-def test_ring_all_gather_strided_axis(mesh8):
-    """Ring over the 'data' axis of the 4x2 mesh: LOGICAL neighbor ids must
-    step by the axis stride (2), not by 1."""
-    from recsys_tpu.parallel.pallas_ring import ring_all_gather
-
-    B, D = 8, 4
-    x = jnp.arange(B * D, dtype=jnp.float32).reshape(B, D)
-    f = smap(lambda e: ring_all_gather(e, "data"), mesh8,
-             P("data", None), out_specs=P(None, None))
-    np.testing.assert_allclose(np.asarray(f(x)), np.asarray(x))
-
-
-def test_ring_sharded_topk_matches_dense(mesh_dp):
-    from recsys_tpu.parallel.pallas_ring import ring_sharded_topk
-
-    B, N, k = 4, 64, 10
-    rng = np.random.default_rng(0)
-    scores = jnp.asarray(rng.normal(size=(B, N)).astype(np.float32))
-    f = smap(lambda s: ring_sharded_topk(s, k, "data"), mesh_dp,
-             P(None, "data"), out_specs=(P(None, None), P(None, None)))
-    vals, idx = f(scores)
-    ref_vals, ref_idx = jax.lax.top_k(scores, k)
-    np.testing.assert_allclose(np.asarray(vals), np.asarray(ref_vals), rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(idx), np.asarray(ref_idx))
-
-
-def test_ring_all_gather_bidi_matches_xla(mesh_dp):
-    from recsys_tpu.parallel.pallas_ring import ring_all_gather
-
-    B, D = 16, 8
-    x = jnp.arange(B * D, dtype=jnp.float32).reshape(B, D)
-    f = smap(lambda e: ring_all_gather(e, "data", bidirectional=True), mesh_dp,
-             P("data", None), out_specs=P(None, None))
-    np.testing.assert_allclose(np.asarray(f(x)), np.asarray(x))
-
-
-def test_ring_all_gather_bidi_race_free(mesh_dp):
-    """Bidirectional protocol under the interpreter's vector-clock race
-    detector: per-direction buffers/semaphores must never alias."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    import recsys_tpu.parallel.pallas_ring as pr
-
-    orig = pr._interpret
-    pr._interpret = lambda: pltpu.InterpretParams(
-        dma_execution_mode="on_wait", detect_races=True)
-    try:
-        B, D = 8, 4
-        x = jnp.arange(B * D, dtype=jnp.float32).reshape(B, D)
-        f = smap(lambda e: pr.ring_all_gather(e, "data", bidirectional=True),
-                 mesh_dp, P("data", None), out_specs=P(None, None))
-        np.testing.assert_allclose(np.asarray(f(x)), np.asarray(x))
-    finally:
-        pr._interpret = orig
-
-
-def test_ring_all_gather_bidi_strided_and_odd():
-    """S=4 on the strided axis of a 4x2 mesh, and an ODD ring (S=3) where
-    the clockwise direction carries one more hop than counter-clockwise."""
-    from recsys_tpu.config import MeshConfig
-    from recsys_tpu.parallel.mesh import build_mesh
-    from recsys_tpu.parallel.pallas_ring import ring_all_gather
-
-    m42 = build_mesh(MeshConfig(num_data=4, num_model=2), jax.devices()[:8])
-    B, D = 8, 4
-    x = jnp.arange(B * D, dtype=jnp.float32).reshape(B, D)
-    f = smap(lambda e: ring_all_gather(e, "data", bidirectional=True), m42,
-             P("data", None), out_specs=P(None, None))
-    np.testing.assert_allclose(np.asarray(f(x)), np.asarray(x))
-
-    m3 = build_mesh(MeshConfig(num_data=3, num_model=1), jax.devices()[:3])
-    x3 = jnp.arange(12 * D, dtype=jnp.float32).reshape(12, D)
-    f3 = smap(lambda e: ring_all_gather(e, "data", bidirectional=True), m3,
-              P("data", None), out_specs=P(None, None))
-    np.testing.assert_allclose(np.asarray(f3(x3)), np.asarray(x3))
-
-
-def test_ring_sharded_topk_bidi_matches_dense(mesh_dp):
-    from recsys_tpu.parallel.pallas_ring import ring_sharded_topk
-
-    B, N, k = 4, 64, 10
-    rng = np.random.default_rng(1)
-    scores = jnp.asarray(rng.normal(size=(B, N)).astype(np.float32))
-    f = smap(lambda s: ring_sharded_topk(s, k, "data", bidirectional=True),
-             mesh_dp, P(None, "data"), out_specs=(P(None, None), P(None, None)))
-    vals, idx = f(scores)
-    ref_vals, ref_idx = jax.lax.top_k(scores, k)
-    np.testing.assert_allclose(np.asarray(vals), np.asarray(ref_vals), rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(idx), np.asarray(ref_idx))
-
+# -- ppermute ring merge of per-shard top-k ---------------------------------
 
 def test_sharded_topk_ring_merge_matches_dense(mesh8, mesh_dp):
-    from recsys_tpu.parallel.collectives import sharded_topk_ring_merge
+    from recsys.parallel.collectives import sharded_topk_ring_merge
 
     B, N, k = 4, 64, 10
     rng = np.random.default_rng(2)
@@ -290,7 +168,7 @@ def test_sharded_topk_ring_merge_tie_determinism(mesh_dp):
     """Tied scores at the k boundary: every device must keep the SAME
     candidate set despite folding the ring in a different rotation order
     (strict total-order merge), or the replicated-output contract breaks."""
-    from recsys_tpu.parallel.collectives import sharded_topk_ring_merge
+    from recsys.parallel.collectives import sharded_topk_ring_merge
 
     B, N, k = 2, 64, 8
     # heavy ties: only 4 distinct score values across 64 columns
@@ -316,7 +194,7 @@ def test_edge_sharded_propagate_matches_dense(mesh8):
     """Edge-sharded propagation (shard edges over `model`, psum merge) ==
     single-device gather+segment_sum, including the weight-0 pad edges
     (E=37 is odd, so padding is exercised)."""
-    from recsys_tpu.ops.graph import make_edge_sharded_propagate, propagate
+    from recsys.ops.graph import make_edge_sharded_propagate, propagate
 
     rng = np.random.default_rng(0)
     N, E, D = 20, 37, 8
@@ -333,7 +211,7 @@ def test_edge_sharded_propagate_matches_dense(mesh8):
 
 def test_edge_sharded_propagate_grad(mesh8):
     """Gradients flow back through the psum to the replicated x."""
-    from recsys_tpu.ops.graph import make_edge_sharded_propagate, propagate
+    from recsys.ops.graph import make_edge_sharded_propagate, propagate
 
     rng = np.random.default_rng(1)
     N, E, D = 12, 16, 4

@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 
-from recsys_tpu.pipeline import cli
+from recsys.pipeline import cli
 
 
 @pytest.fixture(scope="module")
@@ -87,9 +87,9 @@ def test_full_pipeline_stages(workdir):
 
 
 def test_orchestrate_once_against_server(workdir):
-    from recsys_tpu.config import Config, ServeConfig
-    from recsys_tpu.serve.app import build_app_context
-    from recsys_tpu.serve.server import make_server, serve_forever_in_thread
+    from recsys.config import Config, ServeConfig
+    from recsys.serve.app import build_app_context
+    from recsys.serve.server import make_server, serve_forever_in_thread
 
     cfg = Config(serve=ServeConfig(db_path=":memory:", batch_size=4))
     ctx = build_app_context(cfg)
@@ -152,10 +152,10 @@ def test_orchestrate_weekly_branch_against_server(workdir):
     first due cycle, not again within the interval, again once overdue —
     against a live server whose /train/start actually starts a background
     item-tower train (reference weekly retrain DAG)."""
-    from recsys_tpu.config import Config, ServeConfig
-    from recsys_tpu.pipeline.cli import orchestrate_cycles
-    from recsys_tpu.serve.app import build_app_context
-    from recsys_tpu.serve.server import make_server, serve_forever_in_thread
+    from recsys.config import Config, ServeConfig
+    from recsys.pipeline.cli import orchestrate_cycles
+    from recsys.serve.app import build_app_context
+    from recsys.serve.server import make_server, serve_forever_in_thread
     import json as _json
     import urllib.request
 

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from recsys_tpu.ops.quant import (QuantizedItems, int8_topk,
+from recsys.ops.quant import (QuantizedItems, int8_topk,
                                   quantization_recall, quantize_items_int8)
 
 
@@ -56,14 +56,14 @@ def test_identical_vectors_score_maximally():
     assert np.asarray(idx).ravel().tolist() == [7, 42]
 
 
-def test_int8_tpu_index_lifecycle():
-    """Int8TpuIndex behind the common serving-index contract: add/update/
+def test_int8_device_index_lifecycle():
+    """Int8Index behind the common serving-index contract: add/update/
     remove, id mapping, top-k agreement with the exact VectorIndex path."""
-    from recsys_tpu.serve.ann import Int8TpuIndex
+    from recsys.serve.ann import Int8Index
 
     rng = np.random.default_rng(5)
     D = 32
-    ix = Int8TpuIndex(D)
+    ix = Int8Index(D)
     # empty index contract
     ids, scores = ix.topk(rng.normal(size=(2, D)).astype(np.float32), 3)
     assert (ids == -1).all()
@@ -87,19 +87,19 @@ def test_int8_tpu_index_lifecycle():
     import tempfile, os
     path = os.path.join(tempfile.mkdtemp(), "ix")
     ix.save(path)
-    ix2 = Int8TpuIndex.load(path)
+    ix2 = Int8Index.load(path)
     a, _ = ix.topk(q, 5)
     b, _ = ix2.topk(q, 5)
     assert (a == b).all()
 
 
 def test_int8_backend_selectable_in_app_context():
-    from recsys_tpu.config import load_config
-    from recsys_tpu.serve.ann import Int8TpuIndex
-    from recsys_tpu.serve.app import build_app_context
+    from recsys.config import load_config
+    from recsys.serve.ann import Int8Index
+    from recsys.serve.app import build_app_context
 
     cfg = load_config(overrides={"serve": {"ann_backend": "int8",
                                            "db_path": ":memory:",
                                            "batch_window_ms": 0.0}})
     ctx = build_app_context(cfg)
-    assert isinstance(ctx.index, Int8TpuIndex)
+    assert isinstance(ctx.index, Int8Index)

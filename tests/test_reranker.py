@@ -7,11 +7,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from recsys_tpu.config import Config, RerankerConfig
-from recsys_tpu.data.ranker_features import (
+from recsys.config import Config, RerankerConfig
+from recsys.data.ranker_features import (
     build_rank_features, context_vector, import_interactions)
-from recsys_tpu.ops.fm import fm_interaction, fm_interaction_vector
-from recsys_tpu.train import reranker as R
+from recsys.ops.fm import fm_interaction, fm_interaction_vector
+from recsys.train import reranker as R
 
 CFG = Config(reranker=RerankerConfig(epochs=60, batch_size=256, deep_hidden=(32, 16)))
 
@@ -94,7 +94,7 @@ def test_deepfm_learns():
 
 def test_import_interactions_ratio():
     import pandas as pd
-    from recsys_tpu.data.dataset import IdMap
+    from recsys.data.dataset import IdMap
 
     tx = pd.DataFrame({"user_id": ["u1", "u2"], "item_id": ["a", "b"]})
     m = IdMap(["a", "b", "c"])
@@ -108,8 +108,8 @@ def test_import_interactions_candidates_matches_serve_distribution():
     """Candidate-conditioned negatives: every negative must come from the
     tower's own top-k for that user, never from the user's purchases."""
     import pandas as pd
-    from recsys_tpu.data.dataset import IdMap
-    from recsys_tpu.data.ranker_features import import_interactions_candidates
+    from recsys.data.dataset import IdMap
+    from recsys.data.ranker_features import import_interactions_candidates
 
     rng = np.random.default_rng(0)
     N, D = 50, 16

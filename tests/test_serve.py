@@ -6,11 +6,11 @@ import urllib.request
 import numpy as np
 import pytest
 
-from recsys_tpu.config import Config, ServeConfig
-from recsys_tpu.serve.ann import VectorIndex, native_available
-from recsys_tpu.serve.app import AppContext, build_app_context, hash_vectorizer
-from recsys_tpu.serve.server import make_server, serve_forever_in_thread
-from recsys_tpu.serve.store import ActionType, ServeStore
+from recsys.config import Config, ServeConfig
+from recsys.serve.ann import VectorIndex, native_available
+from recsys.serve.app import AppContext, build_app_context, hash_vectorizer
+from recsys.serve.server import make_server, serve_forever_in_thread
+from recsys.serve.store import ActionType, ServeStore
 
 CFG = Config(serve=ServeConfig(db_path=":memory:", batch_size=8))
 
@@ -95,7 +95,7 @@ def test_app_process_by_ids_and_refresh(tmp_path):
     assert r["processed_count"] == 2 and r["missing"] == ["nope"]
     r2 = ctx.refresh_item_vectors(str(tmp_path / "mat"))
     assert r2["count"] == 6
-    from recsys_tpu.train.checkpoint import load_array_with_ids
+    from recsys.train.checkpoint import load_array_with_ids
     arr, ids, _ = load_array_with_ids(str(tmp_path / "mat"))
     assert arr.shape == (7, 128) and ids[0] == "<pad>"
 
@@ -128,6 +128,7 @@ def test_http_contract(http_ctx):
     ctx, base = http_ctx
     code, health = _call(base, "GET", "/")
     assert code == 200 and health["status"] == "ok"
+    assert health["platform"] == "cpu" and health["count"] == 8
 
     code, r = _call(base, "POST", "/api/controller/products/ingest",
                     {"products": _products(10, "q")})
@@ -170,7 +171,7 @@ def test_http_contract(http_ctx):
 def test_hnsw_index_recall_on_clustered_embeddings():
     """Native HNSW (reference pgvector config) must recover >95% of exact
     top-50 on clustered embeddings — the realistic regime."""
-    from recsys_tpu.serve.ann import HnswIndex, hnsw_available
+    from recsys.serve.ann import HnswIndex, hnsw_available
 
     assert hnsw_available()
     rng = np.random.default_rng(0)
@@ -204,7 +205,7 @@ def test_hnsw_parallel_build_matches_serial_quality():
     """Concurrent insert (striped link locks) must keep graph quality: both
     builds recover >95% of exact top-20, and parallel adds stay queryable
     mid-stream (upserts + later batches)."""
-    from recsys_tpu.serve.ann import HnswIndex
+    from recsys.serve.ann import HnswIndex
 
     rng = np.random.default_rng(7)
     N, D = 6000, 64
@@ -237,8 +238,8 @@ def test_hnsw_parallel_build_matches_serial_quality():
 
 
 def test_app_context_hnsw_backend():
-    from recsys_tpu.config import Config, ServeConfig
-    from recsys_tpu.serve.ann import HnswIndex
+    from recsys.config import Config, ServeConfig
+    from recsys.serve.ann import HnswIndex
 
     cfg = Config(serve=ServeConfig(db_path=":memory:", batch_size=8,
                                    ann_backend="hnsw"))
@@ -255,15 +256,15 @@ def test_model_backed_vectorizer_consistency():
     """serve-time model vectorizer must agree with the offline
     materialization path for the same params."""
     import jax
-    from recsys_tpu.config import (
+    from recsys.config import (
         DataConfig, ItemTowerConfig, MeshConfig, SimCSEConfig, VocabConfig)
-    from recsys_tpu.data.dataset import tokenize_items
-    from recsys_tpu.data.synthetic import generate_dataset
-    from recsys_tpu.data.vocab import StdVocab
-    from recsys_tpu.parallel.mesh import build_mesh
-    from recsys_tpu.serve.app import model_vectorizer
-    from recsys_tpu.serve.store import TrainingItem
-    from recsys_tpu.train.simcse import build_model, init_params, materialize_item_vectors
+    from recsys.data.dataset import tokenize_items
+    from recsys.data.synthetic import generate_dataset
+    from recsys.data.vocab import StdVocab
+    from recsys.parallel.mesh import build_mesh
+    from recsys.serve.app import model_vectorizer
+    from recsys.serve.store import TrainingItem
+    from recsys.train.simcse import build_model, init_params, materialize_item_vectors
 
     cfg = Config(
         data=DataConfig(num_items=24, num_users=8, days=20, seed=9),
@@ -315,7 +316,7 @@ def test_dynamic_batcher_coalesces_and_slices():
     import threading
     import time
 
-    from recsys_tpu.serve.batcher import DynamicBatcher
+    from recsys.serve.batcher import DynamicBatcher
 
     calls = []
 
@@ -347,7 +348,7 @@ def test_dynamic_batcher_coalesces_and_slices():
 
 
 def test_dynamic_batcher_propagates_errors():
-    from recsys_tpu.serve.batcher import DynamicBatcher
+    from recsys.serve.batcher import DynamicBatcher
 
     def bad(items):
         raise ValueError("boom")

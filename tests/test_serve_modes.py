@@ -9,16 +9,16 @@ import urllib.request
 import numpy as np
 import pytest
 
-from recsys_tpu.config import Config, ServeConfig
-from recsys_tpu.eval import rerank_eval as R
-from recsys_tpu.eval.baselines import popularity_ranking
-from recsys_tpu.serve.app import build_app_context
-from recsys_tpu.serve.recommend import (RecommendAssets, blend_topk,
+from recsys.config import Config, ServeConfig
+from recsys.eval import rerank_eval as R
+from recsys.eval.baselines import popularity_ranking
+from recsys.serve.app import build_app_context
+from recsys.serve.recommend import (RecommendAssets, blend_topk,
                                         rerank_serve_topk,
                                         store_events_arrays)
-from recsys_tpu.serve.server import make_server, serve_forever_in_thread
-from recsys_tpu.serve.store import ActionType
-from recsys_tpu.train.reranker import GBDTRanker
+from recsys.serve.server import make_server, serve_forever_in_thread
+from recsys.serve.store import ActionType
+from recsys.train.reranker import GBDTRanker
 
 N, D = 60, 16
 
@@ -40,7 +40,7 @@ def _assets(rng, with_ranker=True):
 
 
 def _ctx_with_user(assets, mode):
-    from recsys_tpu.config import ItemTowerConfig
+    from recsys.config import ItemTowerConfig
 
     # item_tower.dim drives both the store's vector dim and the user
     # vectorizer's output dim — must match the assets' matrix dim
@@ -181,7 +181,7 @@ def test_recipe_modes_fall_back_without_assets():
 def test_hybrid_user_vectorizer_builds_correct_batch():
     """Serving glue for the hybrid backend: left padding, time buckets,
     GNN-embedding lookup (zeros for unknown users), bucket padding."""
-    from recsys_tpu.serve.app import hybrid_user_vectorizer
+    from recsys.serve.app import hybrid_user_vectorizer
 
     rng = np.random.default_rng(2)
     assets = _assets(rng, with_ranker=False)
@@ -234,10 +234,10 @@ def test_load_recommend_assets_roundtrip(tmp_path):
     with correct row alignment, logq from item features, and the ranker."""
     import pandas as pd
 
-    from recsys_tpu.config import Config, DataConfig
-    from recsys_tpu.data.etl import logq_from_item_features
-    from recsys_tpu.serve.recommend import load_recommend_assets
-    from recsys_tpu.train.checkpoint import save_array_with_ids
+    from recsys.config import Config, DataConfig
+    from recsys.data.etl import logq_from_item_features
+    from recsys.serve.recommend import load_recommend_assets
+    from recsys.train.checkpoint import save_array_with_ids
 
     rng = np.random.default_rng(5)
     root = str(tmp_path)
@@ -294,7 +294,7 @@ def test_blend_topk_cached_assets_match_fresh():
     lq = np.asarray(assets.logq, np.float64)
     pop = ((lq - lq.min()) / (lq.max() - lq.min())).astype(np.float32)
     np.testing.assert_allclose(assets.pop_norm, pop)
-    from recsys_tpu.eval.baselines import popularity_ranking
+    from recsys.eval.baselines import popularity_ranking
 
     np.testing.assert_array_equal(assets.pop_ranking(10),
                                   popularity_ranking(assets.logq, 10))
@@ -313,7 +313,7 @@ def test_rerank_serve_topk_prenormalized_matches_r4_path():
     top = rerank_serve_topk(assets, uv, ev, now_day=31, k=8, pool_size=32,
                             m_cos=10, m_pop=5)
     # r4 semantics, recomputed from raw artifacts without the caches
-    from recsys_tpu.eval.baselines import popularity_ranking
+    from recsys.eval.baselines import popularity_ranking
 
     N1 = assets.item_matrix.shape[0]
     urow = np.concatenate([np.full(len(ii), r, np.int64)

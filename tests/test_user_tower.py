@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from recsys_tpu.config import (
+from recsys.config import (
     Config, DataConfig, MeshConfig, UserTowerConfig, UserTrainConfig, VocabConfig)
-from recsys_tpu.data.synthetic import generate_dataset
-from recsys_tpu.parallel.mesh import build_mesh
-from recsys_tpu.train import sasrec
+from recsys.data.synthetic import generate_dataset
+from recsys.parallel.mesh import build_mesh
+from recsys.train import sasrec
 
 CFG = Config(
     data=DataConfig(num_items=120, num_users=60, days=60, seed=11),
@@ -50,7 +50,7 @@ def test_prepare_stage2(stage2_data):
 
 
 def test_freeze_gate_and_plateau():
-    from recsys_tpu.train.state import PlateauScheduler, freeze_gate_schedule
+    from recsys.train.state import PlateauScheduler, freeze_gate_schedule
 
     g = freeze_gate_schedule(5)
     assert float(g(0)) == 0.0 and float(g(4)) == 0.0 and float(g(5)) == 1.0
@@ -109,7 +109,7 @@ def test_user_vectors_normalized(stage2_data, mesh):
 @pytest.mark.parametrize("variant", ["hnm", "mixed_hnm", "margin"])
 def test_loss_variants_train(stage2_data, mesh, tmp_path, variant):
     """Every loss-zoo variant runs through the jitted stage-2 step."""
-    from recsys_tpu.config import Config as C2
+    from recsys.config import Config as C2
 
     cfg = C2(**{**CFG.__dict__,
                 "user_train": UserTrainConfig(
@@ -145,9 +145,9 @@ def test_step_numerics_mesh_size_invariant(stage2_data):
     1-device mesh and an 8-device (data x model) mesh produces the same
     loss trajectory (sharding changes layout, not math — SURVEY.md §2.12's
     DP design depends on this)."""
-    from recsys_tpu.config import MeshConfig
-    from recsys_tpu.parallel.mesh import data_sharding, replicated
-    from recsys_tpu.train.state import TrainState
+    from recsys.config import MeshConfig
+    from recsys.parallel.mesh import data_sharding, replicated
+    from recsys.train.state import TrainState
 
     rng = np.random.default_rng(0)
     pretrained = rng.normal(0, 0.05, (121, 128)).astype(np.float32)
@@ -182,15 +182,15 @@ def test_stage2_a2a_lookup_matches_dense():
     rng -> same loss trajectory. Catalog pad 128 divides the model axis."""
     import dataclasses
 
-    from recsys_tpu.parallel.mesh import data_sharding, replicated
-    from recsys_tpu.train.state import TrainState
+    from recsys.parallel.mesh import data_sharding, replicated
+    from recsys.train.state import TrainState
 
     cfg = Config(
         data=DataConfig(num_items=127, num_users=40, days=50, seed=3),
         vocab=VocabConfig(num_hash_buckets=50),
         user_tower=UserTowerConfig(max_len=10, num_layers=1),
         user_train=UserTrainConfig(batch_size=16, positions_per_user=2,
-                                   steps_per_epoch_min=1, kernel="xla"),
+                                   steps_per_epoch_min=1),
     )
     items, users, tx = generate_dataset(cfg.data)
     data = sasrec.prepare_stage2(cfg, items, users, tx)

@@ -8,12 +8,12 @@ queries it; these flows give users the same contract products have.
 import numpy as np
 import pytest
 
-from recsys_tpu.config import Config
-from recsys_tpu.serve.app import (
+from recsys.config import Config
+from recsys.serve.app import (
     build_app_context, history_user_vectorizer, tower_user_vectorizer,
 )
-from recsys_tpu.serve.server import make_server, serve_forever_in_thread
-from recsys_tpu.serve.store import ActionType
+from recsys.serve.server import make_server, serve_forever_in_thread
+from recsys.serve.store import ActionType
 
 
 def _ctx_with_world():
@@ -123,7 +123,7 @@ def test_tower_user_vectorizer_shapes():
     cfg, ctx = _ctx_with_world()
     import jax
 
-    from recsys_tpu.train.sasrec import init_stage2_params
+    from recsys.train.sasrec import init_stage2_params
 
     item_ids = ["<pad>"] + [f"p{i}" for i in range(6)]
     L = cfg.user_tower.max_len
